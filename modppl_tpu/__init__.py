@@ -1,4 +1,4 @@
-"""modppl_tpu — a TPU-native probabilistic-programming inference engine.
+"""modppl_tpu — a compiled probabilistic-programming inference engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 reference `modppl` Rust library (agarret7/modppl): the Generative Function

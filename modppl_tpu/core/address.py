@@ -1,6 +1,6 @@
 """Hierarchical string addresses and address-set masks (selections).
 
-TPU-native counterpart of the reference's address layer
+JAX counterpart of the reference's address layer
 (modppl/src/address.rs):
 
 - ``split_addr``   ~ ``SplitAddr::from_addr`` (address.rs:24-37): split an

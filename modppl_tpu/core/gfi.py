@@ -1,11 +1,11 @@
 """The Generative Function Interface (GFI).
 
-TPU-native counterpart of the reference's core trait (modppl/src/gfi.rs):
+JAX counterpart of the reference's core trait (modppl/src/gfi.rs):
 ``Trace`` (gfi.rs:5-29), ``GenFn`` with
 simulate/generate/update/regenerate/call/propose/assess (gfi.rs:49-92), and
 ``ArgDiff`` (gfi.rs:100-112).
 
-Differences driven by the TPU execution model:
+Differences driven by the compiled (XLA) execution model:
 
 - Every method takes an explicit PRNG **key** first (counter-based threefry
   keys replace the reference's ad-hoc ``ThreadRng::default()``, e.g.

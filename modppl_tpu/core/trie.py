@@ -1,6 +1,6 @@
 """Weighted digital trie choice maps, registered as JAX pytrees.
 
-TPU-native counterpart of the reference's ``Trie<V>`` (modppl/src/trie.rs) and
+JAX counterpart of the reference's ``Trie<V>`` (modppl/src/trie.rs) and
 ``DynTrie = Trie<Arc<dyn Any + Send + Sync>>`` (modppl/src/modeling/dyngenfn.rs:10).
 
 Design differences from the reference, driven by XLA:

@@ -1,6 +1,6 @@
 """Distributions with analytic log-densities and counter-based samplers.
 
-TPU-native counterpart of modppl/src/modeling/dists/ — same 10 singletons,
+JAX counterpart of modppl/src/modeling/dists/ — same 10 singletons,
 same parameterizations (SURVEY.md §2), pure-jnp logpdfs and jax.random
 samplers — plus extensions beyond the reference (dists/extra.py):
 exponential, laplace, student_t, binomial, dirichlet, negative_binomial.

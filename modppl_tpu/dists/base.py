@@ -1,6 +1,6 @@
 """Distribution protocol and the u01 primitive.
 
-TPU-native counterpart of ``Distribution<T,U>`` (modppl/src/modeling/dists/
+JAX counterpart of ``Distribution<T,U>`` (modppl/src/modeling/dists/
 distribution.rs:10-17) and ``u01`` (distribution.rs:5-7).
 
 ``logpdf(x, params)`` is pure jnp (batched via vmap, fused into the traced
@@ -57,7 +57,7 @@ class Distribution:
     def sample_batch(self, key, shape, params):
         """`shape` iid draws from ONE key's counter stream.
 
-        The TPU fast path for plated/batched-particle sampling: a single
+        The fast path for plated/batched-particle sampling: a single
         threefry stream covers the whole batch instead of per-element
         `split` + `fold_in` (3x fewer threefry blocks per draw at 10^6
         particles). Scalar distributions override `_sample_batch` with

@@ -1,10 +1,10 @@
 """IID ("plate") distribution wrapper: one batched address per vector of draws.
 
-TPU-native replacement for the reference's per-index address loops
+Vectorized replacement for the reference's per-index address loops
 (e.g. ``format!("(y, {})", i)`` at modppl/tests/dyngenfns/hierarchical.rs:38,43
 and obs_model's per-i addresses at simple.rs:11-17): instead of N scalar trie
 leaves, a single leaf holds the whole vector and its summed log-density —
-the elementwise logpdf fuses into one VPU kernel and the trace stays small.
+the elementwise logpdf fuses into one kernel and the trace stays small.
 
 Works through every GFI mode unchanged because it is just a Distribution:
 ``h.sample(iid(normal, n), params, "ys")`` samples shape (n, ...) values with
@@ -41,7 +41,7 @@ class IID(Distribution):
         if all(getattr(p, "ndim", 0) == 0 or isinstance(p, (int, float))
                for p in params):
             # scalar params: one threefry stream for the whole plate (the
-            # TPU fast path — no per-element split)
+            # fast path — no per-element split)
             return self.base.sample_batch(key, (self.n,), params)
         keys = jax.random.split(key, self.n)
         return jax.vmap(

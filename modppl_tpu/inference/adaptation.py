@@ -31,6 +31,8 @@ Two tiers:
   devices in tests/test_pooled_adaptation.py).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 
@@ -157,26 +159,43 @@ def _tree_sum(x):
     return x[0]
 
 
+# the pooled sum cuts the C chains into gcd(C, _POOL_BLOCKS) equal blocks
+# of consecutive chains: every power-of-two shard count up to this that
+# divides C divides the block count, so each shard holds whole blocks
+_POOL_BLOCKS = 64
+
+
 def _pooled_sum(x, axis_name):
     """Sum ``x`` over its leading (chain) axis with a FIXED reduction order.
 
-    Unsharded: one adjacent-pairing add tree over all chains. Sharded
-    (inside shard_map with ``axis_name``): the local tree-partial is
-    all_gathered in shard order and the partials tree-summed identically
-    on every shard — for power-of-two chains-per-shard and shard counts
-    this is the SAME global tree, so the pooled statistics (and therefore
-    the adapted eps / inverse mass) are bitwise-identical for any such
-    layout (asserted 1-vs-8 devices in tests/test_pooled_adaptation.py).
+    The C chains (all shards together) are cut into
+    ``gcd(C, _POOL_BLOCKS)`` equal blocks of consecutive chains — a
+    function of C only. Each block is reduced by its own add tree, and the
+    block totals by one more. Sharded (inside shard_map with
+    ``axis_name``), each shard reduces its own blocks and the totals are
+    all_gathered in shard order. For any power-of-two shard count up to
+    ``_POOL_BLOCKS`` that divides C this is the SAME tree, so the pooled
+    statistics (and therefore the adapted eps / inverse mass) are
+    bitwise-identical across layouts (asserted 1-vs-8 devices in
+    tests/test_pooled_adaptation.py, 1-vs-4 at 10 chains per shard in
+    tests/test_chip_smoke.py).
     """
     # materialize the addends first: without the barrier the producer ops
     # fuse into the adds (FMA contraction / recomputation), and the fusion
     # differs between program contexts — measured 1-ulp drift on CPU
     x = jax.lax.optimization_barrier(x)
-    if axis_name is None:
-        return _tree_sum(x)
-    part = _tree_sum(x)
-    parts = jax.lax.all_gather(part, axis_name)
-    return _tree_sum(parts)
+    c_local = x.shape[0]
+    n_shards = 1 if axis_name is None else jax.lax.axis_size(axis_name)
+    block = c_local * n_shards // math.gcd(c_local * n_shards, _POOL_BLOCKS)
+    if c_local % block:
+        # a shard count that does not divide the block count: one block
+        # per shard (a valid sum, but no longer layout-invariant)
+        block = c_local
+    blocks = x.reshape((c_local // block, block) + x.shape[1:])
+    totals = _tree_sum(jnp.swapaxes(blocks, 0, 1))
+    if axis_name is not None:
+        totals = jax.lax.all_gather(totals, axis_name, tiled=True)
+    return _tree_sum(totals)
 
 
 def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
@@ -190,9 +209,9 @@ def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
         slice when running inside shard_map).
       transition: per-chain ``(key, u, eps, inv_mass) -> (u, accept_prob)``,
         or — with ``batched_transition=True`` — a whole-batch
-        ``(key, us, eps, inv_mass) -> (us, accept_probs)`` (e.g. the fused
-        Pallas quadratic transition, ops/leapfrog_pallas.py, which keeps
-        the chain block resident in VMEM and must not be vmapped).
+        ``(key, us, eps, inv_mass) -> (us, accept_probs)`` (a transition
+        that already works on the whole chain block and must not be
+        vmapped).
       num_warmup: total warmup iterations (Stan windowing, as run_warmup).
       axis_name: mesh axis name when called inside shard_map; partial
         sums cross shards via all_gather in shard order.

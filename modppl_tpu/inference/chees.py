@@ -1,10 +1,10 @@
 """ChEES-HMC: jittered fixed-length trajectories with pooled adaptation.
 
-The many-chain TPU-native alternative to NUTS (VERDICT r4 #2). NUTS builds
-a per-chain binary tree under a vmapped ``while_loop``: every chain pays
-the BATCH-MAX tree depth each transition (measured x4.9 serialization at
-2048 chains, docs/performance.md round-4 notes), and the checkpoint stacks
-cost O(max_depth · d) VMEM per chain. ChEES (Hoffman, Radul & Sountsov,
+The many-chain alternative to NUTS (VERDICT r4 #2). NUTS builds a
+per-chain binary tree under a vmapped ``while_loop``: every chain pays the
+BATCH-MAX tree depth each transition (a counted x4.9 serialization at 2048
+chains), and the checkpoint stacks cost O(max_depth · d) memory per
+chain. ChEES (Hoffman, Radul & Sountsov,
 AISTATS 2021, "An Adaptive MCMC Scheme for Setting Trajectory Lengths in
 Hamiltonian Monte Carlo") replaces the per-chain U-turn criterion with ONE
 shared trajectory length adapted from cross-chain statistics:
@@ -288,7 +288,7 @@ def chees_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                     # (normal for a too-large step_size), the clip
                     # dragged τ down with it and both recovered too
                     # slowly — measured eps 100x under-adapted on the
-                    # TPU hierarchical leg (accept 0.96 at target 0.75,
+                    # hierarchical bench leg (accept 0.96 at target 0.75,
                     # 137-step trajectories). num_steps is already
                     # bounded by max_leapfrog at use time.
                     adam = dict(adam, log_tau=jnp.clip(

@@ -1,9 +1,9 @@
 """Exact enumerative inference over finite-support discrete latents.
 
 No reference counterpart (the reference's inference is all Monte Carlo);
-the TPU build adds it because (a) exact posteriors are the strongest test
+this build adds it because (a) exact posteriors are the strongest test
 oracle for the samplers, and (b) enumeration is embarrassingly parallel —
-the whole support grid scores in one vmapped ``assess`` on the VPU.
+the whole support grid scores in one vmapped ``assess``.
 
 Works on any GenFn: each enumerated address is constrained to every value
 in its support, jointly with the observations; the fully-constrained

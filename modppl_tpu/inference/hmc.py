@@ -170,107 +170,6 @@ def da_update(state, accept_prob, target=0.8, gamma=0.05, t0=10.0, kappa=0.75):
 
 
 # --------------------------------------------------------------------------
-# Quadratic-target detection (fused Pallas leapfrog dispatch)
-# --------------------------------------------------------------------------
-
-def detect_quadratic_target(logprob_flat, dim, dtype=jnp.float32,
-                            num_probes=3, tol=1e-5):
-    """Detect logp(u) = -1/2 u^T Λ u + b^T u (+ const); return (Λ, b) or None.
-
-    Covers every all-Gaussian model with identity bijectors (the conjugate
-    / linear-Gaussian zoo): there grad logp is affine, so it suffices to
-    check grad(u) == grad(0) - Λ u at a few random probes with
-    Λ = -hessian(0). Detection needs CONCRETE evaluation — inside an outer
-    jit trace it returns None (only jax's concretization errors are
-    swallowed; a genuinely buggy log-density that raises ValueError etc.
-    still fails loudly) and the caller falls back to the generic path
-    transparently. Probes are scaled by ``probe_radius`` so nonlinearities
-    away from the origin are seen by detection.
-    """
-    try:
-        import numpy as np
-
-        z = jnp.zeros((dim,), dtype)
-        lam = -jax.hessian(logprob_flat)(z)
-        g0 = jax.grad(logprob_flat)(z)
-        lam_c = np.asarray(lam)       # concretize (raises under tracing)
-        if not np.all(np.isfinite(lam_c)) or not np.all(
-                np.isfinite(np.asarray(g0))):
-            return None
-        for i in range(num_probes):
-            # widen the probe radius each round (1x, 4x, 16x the unit ball)
-            # so sub-origin-scale nonlinearities are still exercised
-            u = (4.0 ** i) * jax.random.normal(
-                jax.random.PRNGKey(100 + i), (dim,), dtype)
-            gu = np.asarray(jax.grad(logprob_flat)(u))
-            pred = np.asarray(g0) - np.asarray(u) @ lam_c
-            scale = 1.0 + np.max(np.abs(gu))
-            if not np.all(np.isfinite(gu)) or \
-                    np.max(np.abs(gu - pred)) > tol * scale:
-                return None
-        return lam, g0
-    except (jax.errors.ConcretizationTypeError,
-            jax.errors.TracerArrayConversionError):
-        # called under an outer trace — detection impossible, generic path.
-        # (TracerArrayConversionError subclasses JAXTypeError directly, not
-        # ConcretizationTypeError, so both must be named.)
-        return None
-
-
-def _quadratic_chains(key, lam, b, u0s, num_warmup, num_samples, eps0,
-                      num_leapfrog, target_accept, interpret=False):
-    """Pooled-adaptation HMC where every transition is the fused Pallas
-    leapfrog+logprob kernel (ops/leapfrog_pallas.py) over the whole chain
-    batch — zero HBM round-trips inside a trajectory. Output contract
-    matches _pooled_chains."""
-    if num_warmup < 1:
-        raise ValueError("the fused quadratic path needs num_warmup >= 1 "
-                         "(a zero-length warmup kernel grid cannot "
-                         "launch); pass use_fused_quadratic=False")
-    from modppl_tpu.ops.leapfrog_vpu_pallas import MAX_DIM_VPU_CHUNK
-
-    if u0s.shape[1] <= MAX_DIM_VPU_CHUNK:
-        # round 4: BOTH phases as single kernel launches — the pooled
-        # windowed warmup (dual averaging + Chan-Welford mass in VMEM
-        # scratch, ops/leapfrog_vpu_pallas.hmc_warmup_chunk_small) and the
-        # sampling chunk. Round 5 extended the packed kernels' range to
-        # MAX_DIM_VPU_CHUNK via the generalized parameter tile.
-        from modppl_tpu.ops.leapfrog_vpu_pallas import (
-            hmc_sample_chunk_small,
-            hmc_warmup_chunk_small,
-        )
-
-        us, eps, inv_mass = hmc_warmup_chunk_small(
-            jax.random.fold_in(key, 0), u0s, float(eps0), lam, b,
-            num_warmup, num_leapfrog, target_accept=target_accept,
-            interpret=interpret)
-        us_t, logps, aprobs, divs, _ = hmc_sample_chunk_small(
-            jax.random.fold_in(key, 2), us, eps, lam, b, inv_mass,
-            num_samples, num_leapfrog, interpret=interpret)
-        sw = lambda x: jnp.swapaxes(x, 0, 1)
-        return sw(us_t), sw(logps), sw(aprobs), sw(divs), eps, inv_mass
-
-    # round 4: BOTH phases as single launches at d >= 7 too — the MXU
-    # warmup chunk keeps all chains in one block (warmup emits no per-
-    # iteration outputs, so it fits scoped VMEM), the sampling chunk tiles
-    # chains over an outer grid axis. Eliminates the ~0.2-0.35 ms of
-    # per-transition launch + glue cost of the scanned paths.
-    from modppl_tpu.ops.leapfrog_pallas import (
-        hmc_sample_chunk,
-        hmc_warmup_chunk,
-    )
-
-    us, eps, inv_mass = hmc_warmup_chunk(
-        jax.random.fold_in(key, 0), u0s, float(eps0), lam, b, num_warmup,
-        num_leapfrog, target_accept=target_accept, interpret=interpret)
-    us_t, logps, aprobs, divs = hmc_sample_chunk(
-        jax.random.fold_in(key, 2), us, eps, lam, b, inv_mass,
-        num_samples, num_leapfrog, interpret=interpret)
-    sw = lambda x: jnp.swapaxes(x, 0, 1)
-    return sw(us_t), sw(logps), sw(aprobs), sw(divs), eps, inv_mass
-
-
-# --------------------------------------------------------------------------
 # Full pipeline
 # --------------------------------------------------------------------------
 
@@ -317,12 +216,11 @@ _OUTER_UNROLL = 4
 def _phase_randoms(phase_key, gidx, length, dim, dtype):
     """Pre-draw one segment's per-transition randoms OUTSIDE the scan.
 
-    Round-5 fast path (VERDICT r4 #1): the scanned generic transition was
-    per-iteration-launch bound, and ~a third of its body was threefry —
-    per-chain key folds, splits, and draws re-entering the loop every
-    iteration. Drawing a whole segment per chain up front turns that into
-    three large fused RNG kernels. Streams are keyed by GLOBAL chain
-    index (fold_in), so chain i sees the same randoms under any sharding.
+    Drawing inside the scan puts per-chain key folds, splits and draws in
+    every iteration's body. Drawing a whole segment per chain up front
+    turns that into three large fused RNG kernels. Streams are keyed by
+    GLOBAL chain index (fold_in), so chain i sees the same randoms under
+    any sharding.
 
     Returns (momenta_std (W, C, d), eps_jitter (W, C), accept_u (W, C)).
     """
@@ -345,7 +243,7 @@ def _transition_batch(vag, U, LP, G, eps_shared, inv_mass, mom_t, jit_t,
                       acc_t, num_leapfrog):
     """One whole-batch HMC transition with pre-drawn randoms.
 
-    The round-5 generic fast path: (1) the carry holds (positions, logp,
+    The generic pooled path: (1) the carry holds (positions, logp,
     grad) so neither the start log-density nor the start gradient is ever
     recomputed (the scanned path paid one full logp + one grad per
     transition for values it already had); (2) each leapfrog step uses ONE
@@ -392,14 +290,12 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
     """All chains share ONE adapted (eps, inv_mass), pooled across chains
     (and shards, inside shard_map) — SURVEY.md §2b item 5.
 
-    Round 5 rewrote this as the FAST generic path (VERDICT r4 #1): batched
-    transitions with pre-drawn per-segment randoms (:func:`_phase_randoms`),
-    a (u, logp, grad) carry, and an unrolled value_and_grad leapfrog —
-    measured 6.2x the scanned path's throughput on the non-quadratic
-    hierarchical-marginalized target at 10^4 chains on a v5e
-    (docs/performance.md round-5 notes). The RNG stream differs from the
-    pre-round-5 scanned stream (documented break); bitwise layout
-    invariance is preserved by construction — per-chain streams keyed by
+    Batched transitions with pre-drawn per-segment randoms
+    (:func:`_phase_randoms`), a (u, logp, grad) carry, and an unrolled
+    value_and_grad leapfrog. This is the path every target runs. The RNG
+    stream differs from the per-chain scanned stream of
+    :func:`_single_chain`; bitwise layout invariance is preserved by
+    construction — per-chain streams keyed by
     global chain index, pooled statistics via adaptation._pooled_sum's
     fixed add trees, barriers bracketing each transition (asserted dp1 vs
     dp8 and 1-process vs 2-process in tests/test_pooled_adaptation.py and
@@ -413,9 +309,16 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
         warmup_schedule,
     )
 
-    vag = jax.vmap(jax.value_and_grad(logprob))
     c_local, dim = u0s.shape
     dt = u0s.dtype
+    vag_raw = jax.vmap(jax.value_and_grad(logprob))
+
+    def vag(u):
+        # the chain state's dtype rules: a model may accumulate its
+        # log-density wider (e.g. float64 under x64 for float32 latents)
+        lp, g = vag_raw(u)
+        return lp.astype(dt), g.astype(dt)
+
     if axis_name is None:
         c_total = jnp.asarray(float(c_local), dt)
         gidx = jnp.arange(c_local)
@@ -427,12 +330,12 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
         barrier = lambda x: x
         psum0 = lambda x: jnp.sum(x, axis=0)
         # unrolling quadruples trace/compile time; only worth it for
-        # production-scale runs (the launch overhead it amortizes is a
-        # few ms total on a short run, and irrelevant below ~512 chains).
-        # Above dim 16 back off entirely: the unrolled-leapfrog x
-        # outer-unroll product multiplies the log-density body ~32x, and
-        # a d=32 mvnormal (O(d^3) unrolled small-dim Cholesky) produced
-        # an HLO whose remote compile never finished (round-5 sweep)
+        # production-scale runs (the launch overhead it amortizes is
+        # small on a short run and below ~512 chains). Above dim 16 back
+        # off entirely: the unrolled-leapfrog x outer-unroll product
+        # multiplies the log-density body ~32x, and a d=32 mvnormal
+        # (O(d^3) unrolled small-dim Cholesky) makes that HLO very slow
+        # to compile. The thresholds are not yet measured on a GPU.
         unroll = (_OUTER_UNROLL
                   if (num_warmup + num_samples) >= 256
                   and u0s.shape[0] >= 512 and dim <= 16 else 1)
@@ -464,18 +367,22 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
                 # iteration (accept mean + first/second moments for the
                 # windowed mass estimate) instead of three — at one
                 # shard a single reduce kernel, sharded a single
-                # all_gather of (2d+1,) partials. Moments accumulate
+                # all_gather of (2d+2,) partials. Moments accumulate
                 # CENTERED at the window-start pooled mean `ref`: the raw
                 # (uncentered) form cancels catastrophically in f32 when
                 # a posterior sits far from the origin (|mean| >> sd —
                 # e.g. mean 1e4, sd 0.1 loses ALL variance digits).
-                Uc = U - ref[None, :]
+                # Chains sitting where the log-density is not finite are
+                # not draws of the target: they count in the accept mean
+                # (as rejections) but not in the moments.
+                ok = jnp.isfinite(LP)[:, None]
+                Uc = jnp.where(ok, U - ref[None, :], 0.0)
                 stat = psum0(jnp.concatenate(
-                    [aprob[:, None], Uc, Uc * Uc], axis=1))
+                    [aprob[:, None], ok.astype(dt), Uc, Uc * Uc], axis=1))
                 a_mean = stat[0] / c_total
-                s1 = s1 + stat[1: 1 + dim]
-                s2 = s2 + stat[1 + dim:]
-                n = n + c_total
+                s1 = s1 + stat[2: 2 + dim]
+                s2 = s2 + stat[2 + dim:]
+                n = n + stat[1]
             elif adapt_da:
                 a_mean = psum0(aprob) / c_total
             if adapt_da:
@@ -520,8 +427,11 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
         phase += 1
     for w in slow:
         # window-start pooled mean as the centering point for the moment
-        # sums (layout-invariant: one fixed-order reduction per window)
-        ref = psum0(carry[0]) / c_total
+        # sums (layout-invariant: one fixed-order reduction per window),
+        # over the chains whose log-density is finite
+        ok = jnp.isfinite(carry[1])
+        ref = psum0(jnp.where(ok[:, None], carry[0], 0.0)) / jnp.maximum(
+            psum0(ok.astype(dt)), 1.0)
         carry, _ = run_phase(jax.random.fold_in(k_warm, phase), carry,
                              inv_mass, w, True, ref=ref)
         phase += 1
@@ -561,42 +471,16 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
     return sw(us), sw(logps), sw(aprobs), sw(divs), eps, inv_mass
 
 
-# threshold above which the MXU-tiled CHUNK kernels take over from the
-# packed VPU chunk kernels. Round 5 closed the old d in [7, 127] generic
-# gap with data (docs/performance.md round-5 sweep, 10^4 chains, 300+300
-# iters, v5e): at d=32 the MXU chunk (0.180 s) TIES the generic path's
-# best case (a diagonal target, 0.178 s) and beats it outright on dense
-# quadratics — where the generic path's O(d^3) unrolled mvnormal
-# gradient HLO did not even finish compiling. Auto-dispatch is now
-# contiguous: d <= FUSED_QUADRATIC_MAX_DIM_VPU -> VPU chunks, above ->
-# MXU chunks (whenever the quadratic probe succeeds). Lane packing
-# (leapfrog_pallas._seg_width, round 5 late) then took the d=32 MXU
-# chunk from 0.180 to 0.0727 s — 2.5x clear of the generic path.
-FUSED_QUADRATIC_MIN_DIM = 13
-# threshold below which the CHUNKED VPU kernels win (round 4): the whole
-# warmup and the whole sampling phase run as ONE launch each
-# (ops/leapfrog_vpu_pallas.hmc_warmup_chunk_small / hmc_sample_chunk_
-# small). Round 5 extended the packed kernels' parameter tile past d=6
-# and measured the crossover against the NEW fast generic path
-# (docs/performance.md round-5 sweep, 10^4 chains, 300+300 iters, v5e):
-# d=3 kernel 1.7x, d=8 1.35x, d=12 4.3x — the kernel wins everywhere it
-# compiles, so the bound sits at the Mosaic compile-time wall
-# (MAX_DIM_VPU_CHUNK), not at a performance crossover.
-FUSED_QUADRATIC_MAX_DIM_VPU = 12
-
-
 def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                num_chains=1, step_size=0.1, num_leapfrog=16,
                target_accept=0.8, selection=None, init_trace=None,
-               pooled_adaptation=None, axis_name=None,
-               use_fused_quadratic=None, setup_key=None):
+               pooled_adaptation=None, axis_name=None, setup_key=None):
     """Build a reusable COMPILED HMC sampler: returns ``run(key) -> dict``.
 
-    Setup (initial trace, bijectors, quadratic-target detection) happens
-    once, eagerly, at build time; every ``run(key)`` call afterwards is a
-    single jitted program — repeated production invocations pay zero
-    retracing/dispatch overhead. :func:`hmc` is the one-shot convenience
-    wrapper.
+    Setup (initial trace, bijectors) happens once, eagerly, at build time;
+    every ``run(key)`` call afterwards is a single jitted program —
+    repeated production invocations pay zero retracing/dispatch overhead.
+    :func:`hmc` is the one-shot convenience wrapper.
     """
     if init_trace is None:
         init_trace, _ = model.generate(
@@ -612,51 +496,6 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     if pooled_adaptation is None:
         pooled_adaptation = num_chains > 1
 
-    # fused Pallas leapfrog dispatch: quadratic targets (the all-Gaussian /
-    # conjugate zoo) run the whole chain batch in VMEM-resident blocks,
-    # SURVEY.md §2a extension row / §7.6. Auto (TPU, num_warmup >= 1):
-    # CONTIGUOUS over d since round 5 — d <= FUSED_QUADRATIC_MAX_DIM_VPU
-    # runs the packed VPU chunk kernels, larger d the MXU chunk kernels
-    # (measured sweep in docs/performance.md: the chunks win or tie the
-    # fast generic path at every measured d, and dense mid-d quadratics
-    # are compile-pathological on the generic path). Force with
-    # use_fused_quadratic=True; non-TPU backends run interpret mode —
-    # slow, for tests.
-    quad = None
-    dim = u0_flat.shape[0]
-    if use_fused_quadratic and axis_name is not None:
-        # _quadratic_chains has no collective pooling and derives batch
-        # randomness from the shard-replicated key: inside shard_map it
-        # would silently duplicate chains across shards
-        raise ValueError(
-            "use_fused_quadratic=True cannot be combined with axis_name: "
-            "the fused quadratic path does not pool adaptation across "
-            "shards (use the generic pooled path under shard_map)")
-    # auto-dispatch requires num_warmup >= 1 (the warmup chunk kernel's
-    # grid cannot be zero-length, ADVICE r4): a pre-adapted zero-warmup
-    # run silently keeps the generic path; only an EXPLICIT
-    # use_fused_quadratic=True hard-fails inside _quadratic_chains
-    # NOTE: since round 5 kernel dispatch is contiguous over d (VPU
-    # chunks to FUSED_QUADRATIC_MAX_DIM_VPU, MXU chunks above), so auto
-    # detection is attempted at EVERY dim on TPU; the VPU/MXU split is
-    # decided inside _quadratic_chains
-    if use_fused_quadratic or (use_fused_quadratic is None
-                               and axis_name is None
-                               and num_warmup >= 1
-                               and jax.default_backend() == "tpu"):
-        quad = detect_quadratic_target(logprob_flat, dim, u0_flat.dtype)
-        if quad is None and use_fused_quadratic:
-            raise ValueError(
-                "use_fused_quadratic=True but the target's log-density is "
-                "not quadratic in the unconstrained latents (or hmc was "
-                "called inside jit, where detection cannot concretize)")
-        if quad is not None:
-            import logging
-
-            logging.getLogger("modppl_tpu").info(
-                "hmc: quadratic target detected (dim=%d) — dispatching to "
-                "the fused Pallas leapfrog kernel", dim)
-
     def constrain_flat(u_flat):
         return constrain(unravel(u_flat))
 
@@ -668,13 +507,7 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
             k, u0_flat.shape, u0_flat.dtype))(chain_keys)
         u0s = u0_flat[None, :] + jitter
 
-        if quad is not None:
-            lam, b = quad
-            us, logps, aprobs, divs, eps, inv_mass = _quadratic_chains(
-                jax.random.fold_in(k_run, 0), lam, b, u0s, num_warmup,
-                num_samples, step_size, num_leapfrog, target_accept,
-                interpret=jax.default_backend() != "tpu")
-        elif pooled_adaptation:
+        if pooled_adaptation:
             us, logps, aprobs, divs, eps, inv_mass = _pooled_chains(
                 jax.random.fold_in(k_run, 0), logprob_flat, u0s, num_warmup,
                 num_samples, step_size, num_leapfrog, target_accept,
@@ -688,27 +521,6 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
             us, logps, aprobs, divs, eps, inv_mass = jax.vmap(run_one)(
                 chain_keys, u0s)
 
-        # self-verification of the fused dispatch (VERDICT r4 #8):
-        # dispatch-by-probe is the one place the sampler is substituted on
-        # a heuristic, so re-score a handful of final draws through the
-        # GENERIC log-density and require agreement up to the constant
-        # normalizer the kernel's quadratic form drops. A target that is
-        # quadratic at the probes but not where the chains actually went
-        # shows up here as quad_check_ok == False.
-        if quad is not None:
-            k_chk = min(num_chains, 8)
-            t_chk = min(num_samples, 2)
-            us_k = us[:k_chk, -t_chk:, :].reshape(-1, dim)
-            lp_k = logps[:k_chk, -t_chk:].reshape(-1)
-            gen_lp = jax.vmap(logprob_flat)(us_k)
-            diff = gen_lp - lp_k          # constant iff truly quadratic
-            dev = jnp.max(jnp.abs(diff - diff[0]))
-            spread = jnp.max(jnp.abs(lp_k - lp_k[0]))
-            quad_ok = dev <= 5e-3 * (1.0 + spread)
-        else:
-            dev = jnp.zeros(())
-            quad_ok = jnp.asarray(True)
-
         # constrain: (chains, samples, dim) -> {addr: (chains, samples, ..)}
         samples = jax.vmap(jax.vmap(constrain_flat))(us)
         return {
@@ -718,17 +530,10 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
             "divergences": divs,
             "step_size": eps,
             # adapted diagonal metric M^-1 (Stan's inv_metric): (dim,)
-            # shared across chains under pooled adaptation / the fused
-            # kernels, (chains, dim) on the per-chain path
+            # shared across chains under pooled adaptation, (chains, dim)
+            # on the per-chain path
             "inv_mass": inv_mass,
             "unconstrained": us,
-            # surfaced dispatch decision (ADVICE r3): which transition
-            # implementation actually ran
-            "fused_quadratic": jnp.asarray(quad is not None),
-            # fused-path self-check (on by default whenever the fused
-            # kernels ran; trivially True on the generic path)
-            "quad_check_ok": quad_ok,
-            "quad_check_max_dev": dev,
         }
 
     return run
@@ -747,18 +552,6 @@ def hmc(key, model, args, observed, **config):
     update. ``axis_name`` names the mesh axis when run inside shard_map
     (parallel/distributed.shardmap_hmc); the fixed add-tree reduction order
     makes the adapted (eps, inv_mass) bitwise-equal across shardings.
-
-    ``use_fused_quadratic`` (default: auto-detect on TPU at any dim —
-    contiguous since round 5) routes targets whose unconstrained
-    log-density is quadratic — the all-Gaussian conjugate /
-    linear-Gaussian zoo — through the fused Pallas kernels: the ENTIRE
-    pooled warmup and the ENTIRE sampling phase each run as one launch
-    (adaptation state in VMEM scratch; ops/leapfrog_vpu_pallas.py at
-    d <= 12, ops/leapfrog_pallas.py above), 1.7x the round-5 fast generic
-    path at d=3 and 4.3x at d=12 (10^4 chains, v5e). Non-quadratic
-    targets fall back to the generic path transparently, and the fused
-    dispatch self-verifies (``quad_check_ok``) by re-scoring final draws
-    through the generic log-joint.
 
     For repeated invocations build the sampler once with
     :func:`hmc_runner` and call it with fresh keys — each ``hmc()`` call

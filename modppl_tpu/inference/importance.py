@@ -3,15 +3,15 @@
 Reference parity: ``importance_sampling`` (modppl/src/inference/importance.rs:12-28)
 and ``importance_resampling`` (importance.rs:37-51).
 
-TPU-native shape: the reference's hot loop of N independent ``generate`` calls
+Vectorized shape: the reference's hot loop of N independent ``generate`` calls
 (importance.rs:18-20) becomes one ``vmap``'d generate over a particle axis —
-a single XLA program evaluating all particles' log-joints on the VPU/MXU —
+a single XLA program evaluating all particles' log-joints —
 followed by a fused logsumexp. Models whose generate cannot be traced
 (data-dependent Python control flow) fall back to an eager loop with
 identical semantics via ``vectorized=False``.
 
 Returned traces are a *batched* Trace pytree (every leaf has a leading
-particle axis) in vectorized mode — the TPU replacement for ``Vec<Trace>``;
+particle axis) in vectorized mode — the batched replacement for ``Vec<Trace>``;
 use ``tree_index`` to extract single traces.
 """
 

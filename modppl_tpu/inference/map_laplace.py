@@ -7,7 +7,7 @@ numpyro ``AutoLaplaceApproximation``), built on the SAME unconstrained
 log-joint machinery as HMC/VI (inference/hmc.make_unconstrained_logprob,
 bijectors from per-address distribution support metadata).
 
-TPU shape: ``num_restarts`` jittered optimizations run as ONE vmapped
+Vectorized shape: ``num_restarts`` jittered optimizations run as ONE vmapped
 optax.adam ``lax.scan`` (multi-start is a batch axis, not a Python loop),
 and the best restart is selected on device. The Hessian for the Laplace
 curvature is exact ``jax.hessian`` of the unconstrained log-joint —

@@ -1,6 +1,6 @@
 """Compiled MCMC: lax.scan over iterations, vmap over chains.
 
-TPU-native execution of the reference's MH kernels (modppl/src/inference/
+Compiled execution of the reference's MH kernels (modppl/src/inference/
 mh.rs): the single-chain Rust loops of modppl/tests/mh.rs become one XLA
 program — iterations under ``lax.scan``, chains under ``vmap`` — with the
 accept/reject clone (mh.rs:15,35-39) replaced by a ``where``-select over the

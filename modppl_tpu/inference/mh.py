@@ -5,7 +5,7 @@ and ``regenerative_metropolis_hastings``/``regen_mh`` (mh.rs:54-76).
 
 The proposal is itself a GenFn over the same Data type whose args are
 ``(prev_trace, *proposal_args)`` and whose return value is ignored — the
-TPU-native replacement for the reference's ``Weak<Trace>`` first-argument
+Functional replacement for the reference's ``Weak<Trace>`` first-argument
 convention (mh.rs:12): traces are immutable pytrees, so the previous trace is
 passed by value.
 

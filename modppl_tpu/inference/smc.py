@@ -14,7 +14,7 @@ a time parameter as the first input argument:
 
 This class preserves the reference's per-particle loop semantics for *any*
 GenFn (trie models, hand-coded tuple-buffer models, Unfold). The compiled
-TPU path is ``modppl_tpu.inference.vsmc`` (vmap over particles, lax.scan
+path is ``modppl_tpu.inference.vsmc`` (vmap over particles, lax.scan
 over time, index-gather resampling).
 """
 

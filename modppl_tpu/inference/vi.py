@@ -113,10 +113,9 @@ def advi(key, model, args, observed, *, num_steps=2000, num_mc=8,
         return (params, opt_state), -loss
 
     keys = jax.random.split(k_opt, num_steps)
-    # NOTE: outer-scan unroll (the HMC fast-path trick) was tried here and
-    # REVERTED: 2.16 -> 3.58 s on the d=16 VI bench leg (v5e) — the adam
-    # update's scalar chain defeats cross-step fusion, so unrolling only
-    # bloats the program
+    # no outer-scan unroll (the HMC fast-path trick): the adam update's
+    # scalar chain blocks cross-step fusion, so unrolling would only bloat
+    # the program (not measured on a GPU)
     (params, _), elbos = jax.lax.scan(step, (params, opt_state), keys)
     mu, log_sigma = params
 

@@ -1,6 +1,6 @@
 """Compiled vectorized SMC: vmap over particles, lax.scan over time.
 
-This is the TPU-native execution of the reference's particle filter
+This is the compiled execution of the reference's particle filter
 (modppl/src/inference/particle_filter.rs + dynunfold.rs): the per-particle
 Rust loops (particle_filter.rs:65-95) become one ``vmap``'d generate per
 step, the time loop becomes ``lax.scan``, and resampling becomes a
@@ -28,9 +28,7 @@ import jax.numpy as jnp
 
 from modppl_tpu.parallel.resample import (
     RESAMPLERS,
-    fused_systematic_resample_or_none,
     gather_particles,
-    systematic_parents,
 )
 from modppl_tpu.utils import effective_sample_size_from_log_weights, logsumexp
 
@@ -84,9 +82,8 @@ def _resample(key, s, resampler, ess_threshold, num_particles):
     """Conditional resampling (compiled; no host sync).
 
     Uses lax.cond so that on non-resample steps the ancestor computation and
-    gather are actually *skipped* at runtime (the TPU scatter in the
-    systematic resampler is the single most expensive op in the filter —
-    a where-select would pay it every step).
+    gather are actually *skipped* at runtime (a where-select would pay the
+    scatter, cumsum and gather every step).
     """
     log_total = logsumexp(s.log_weights)
     log_norm = s.log_weights - log_total
@@ -94,16 +91,8 @@ def _resample(key, s, resampler, ess_threshold, num_particles):
     do = ess < ess_threshold * num_particles
 
     def resample_branch(_):
-        # TPU fast path: the fused Pallas kernel computes ancestors and the
-        # particle gather in one pass (ops/fused_resample_pallas.py) —
-        # bit-identical to the parents+gather fallback.
-        fused = (fused_systematic_resample_or_none(key, log_norm, s.state)
-                 if resampler is systematic_parents else None)
-        if fused is not None:
-            state, parents = fused
-        else:
-            parents = resampler(key, log_norm)
-            state = gather_particles(s.state, parents)
+        parents = resampler(key, log_norm)
+        state = gather_particles(s.state, parents)
         log_weights = jnp.zeros_like(s.log_weights)
         log_ml = s.log_ml + log_total - jnp.log(float(num_particles))
         return state, log_weights, log_ml, parents

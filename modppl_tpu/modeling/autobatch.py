@@ -23,8 +23,8 @@ Two-pass scheme (both passes trace into the SAME jit program):
    hand-written ``plate(dist, n)`` site produces), then the body runs
    per-particle under ``vmap`` with the plate dict passed ``in_axes=0``:
    every lane receives its slice by batching, NOT by an explicit
-   ``xs[i]`` gather (a 2^20-lane gather per address is scalar-core bound
-   on TPU — measured 10x extend slowdown in the gather formulation).
+   ``xs[i]`` gather (a 2^20-lane gather per address for every address
+   of every particle).
 
 The model BODY always runs per-particle — indexing/stacking semantics are
 untouched, so any static-structure per-particle ``@gen`` kernel

@@ -19,8 +19,9 @@ The reference's models branch on sampled values with plain Rust ``if``
    itself a @gen function.
 
 Both idioms trade a constant factor of compute (evaluating all branches)
-for static shapes — the right trade on a TPU, where a warp^W lane-divergent
-branch would cost the same anyway and dynamic shapes would forbid fusion.
+for static shapes — the right trade on a SIMD accelerator, where a
+divergent branch would cost the same anyway and dynamic shapes would forbid
+fusion.
 """
 
 import jax

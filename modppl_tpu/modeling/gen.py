@@ -1,6 +1,6 @@
 """The ``@gen`` decorator: probabilistic functions as generative functions.
 
-TPU-native counterpart of ``DynGenFn`` (modppl/src/modeling/dyngenfn.rs:491-584)
+JAX counterpart of ``DynGenFn`` (modppl/src/modeling/dyngenfn.rs:491-584)
 plus the ``dyngen!`` proc-macro front-end (modppl-macros/src/lib.rs:21-114).
 No operator rewriting is needed in Python — the macro's ``dist(args) %= addr``
 becomes ``h.sample(dist, args, addr)`` and ``genfn(args) /= addr`` becomes

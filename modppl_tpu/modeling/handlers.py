@@ -1,6 +1,6 @@
 """Effect handlers implementing the four GFI execution modes for the DSL.
 
-TPU-native counterpart of the ``DynGenFnHandler`` enum
+JAX counterpart of the ``DynGenFnHandler`` enum
 (modppl/src/modeling/dyngenfn.rs:39-487): four handler classes —
 ``SimulateHandler`` (dyngenfn.rs:41-46), ``GenerateHandler`` (49-58),
 ``UpdateHandler`` (61-76), ``RegenerateHandler`` (79-93) — each providing
@@ -13,7 +13,7 @@ The weight-accounting case matrix (constrained × previous × ArgDiff) is
 reproduced exactly; it is validated bit-for-bit against the regression
 constants in modppl/tests/dyngenfn.rs (see tests/test_gfi_regression.py).
 
-TPU-native differences:
+Differences from the reference:
 
 - Randomness comes from an explicit threefry key; each address derives its
   own subkey via ``fold_in(key, stable_hash(addr))`` so sampling is

@@ -3,7 +3,7 @@
 The genfn-level counterpart of the ``iid`` distribution plate: applies a
 kernel generative function independently across the leading axis of its
 arguments, with all four GFI operations vectorized by ``vmap`` — one
-batched sub-trace instead of N scalar addresses (the TPU-native replacement
+batched sub-trace instead of N scalar addresses (the vectorized replacement
 for the reference's ``format!``-indexed loops over sub-calls).
 
     plate = Map(obs_point_model)

@@ -5,13 +5,12 @@ exponential GP prior over function values at a fixed input grid, with
 log-scale hyperparameters (amplitude, length scale, observation noise) as
 latents. The marginal likelihood is NON-quadratic in the log
 hyperparameters, so HMC/ChEES take the fast generic gradient path
-(inference/hmc._pooled_chains) — this is the model class the dispatch
-self-check exists for — while MAP/Laplace give the standard empirical-
-Bayes point estimate. The covariance math stays on
+(inference/hmc._pooled_chains), while MAP/Laplace give the standard
+empirical-Bayes point estimate. The covariance math stays on
 ops/smalllinalg's unrolled custom-call-free forms for n <= 32 training
-points (docs/performance.md rule 1).
+points.
 
-TPU shape: the kernel matrix is built by broadcasting over the fixed
+Vectorized shape: the kernel matrix is built by broadcasting over the fixed
 (n, n) grid of squared distances (precomputed once, closed over), and the
 GP marginal ``y ~ N(0, K + sigma^2 I)`` is one ``mvnormal`` address, so
 ``assess``/``logjp`` and their gradients are a handful of fused

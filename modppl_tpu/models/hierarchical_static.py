@@ -11,7 +11,7 @@ a particle/chain axis, and shards over a mesh.
 
 Observations use one plated address "ys" (a single vector leaf with summed
 log-density) instead of the reference's per-index `(y, i)` addresses — one
-fused VPU kernel instead of N scalar sites.
+fused kernel instead of N scalar sites.
 """
 
 import jax.numpy as jnp

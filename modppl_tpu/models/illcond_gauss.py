@@ -8,9 +8,7 @@ target VERDICT r3 asked for: single-coordinate ESS on a near-isotropic toy
 cannot detect adaptation regressions; MIN-across-coordinates ESS here can.
 
 The unconstrained log-density is quadratic (logp = -1/2 uᵀΛu + const with
-Λ = Σ⁻¹), so on TPU at d >= FUSED_QUADRATIC_MIN_DIM the fused Pallas
-leapfrog kernel (ops/leapfrog_pallas.py) dispatches — this model is the
-driver-visible benchmark for that kernel (bench.py leg 3).
+Λ = Σ⁻¹) and runs the generic pooled HMC path (bench.py leg 3).
 """
 
 import numpy as np

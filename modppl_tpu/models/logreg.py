@@ -5,14 +5,13 @@ The reference's GFI exists for arbitrary differentiable models
 is the canonical member of that class: standard-normal prior over the
 weights (one ``iid`` plate address), Bernoulli likelihood through a
 numerically-stable log-sigmoid ``factor``. The unconstrained log-joint is
-smooth, unimodal and genuinely non-quadratic (detect_quadratic_target
-rejects it), so HMC runs the GENERIC path — the round-5 fast pooled
-implementation (inference/hmc._pooled_chains) whose throughput the
+smooth, unimodal and genuinely non-quadratic; HMC runs the generic pooled
+path (inference/hmc._pooled_chains) whose throughput the
 ``hmc_nonquad_ess_per_s_1chip`` bench leg records.
 
-TPU shape: vmapped over chains, the model's hot op is a
+Vectorized shape: vmapped over chains, the model's hot op is a
 (chains, dim) x (dim, n_data) matmul in both the forward and gradient
-passes — MXU work, not scalar sites.
+passes — one batched product, not scalar sites.
 """
 
 import jax

@@ -1,7 +1,7 @@
 /* _ctrie: native choice-map (trie) core for the eager interpreter.
  *
  * The reference's choice maps are compiled Rust (modppl/src/trie.rs:7-247:
- * HashMap children + Option value + weight bookkeeping). The TPU build's
+ * HashMap children + Option value + weight bookkeeping). The JAX build's
  * compiled tier stages tries into XLA programs, but the *eager* tier — the
  * semantic reference implementation that also runs dynamic-structure and
  * trans-dimensional models — walks tries in the Python interpreter on every

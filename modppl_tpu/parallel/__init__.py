@@ -21,7 +21,6 @@ from modppl_tpu.parallel.sharded_smc import (
 )
 from modppl_tpu.parallel.resample import (
     RESAMPLERS,
-    fused_systematic_resample_or_none,
     gather_particles,
     multinomial_parents,
     residual_parents,
@@ -34,6 +33,5 @@ __all__ = [
     "particle_sharding", "data_sharding", "replicated", "constrain_particles",
     "RESAMPLERS", "systematic_parents", "multinomial_parents",
     "stratified_parents", "residual_parents", "gather_particles",
-    "fused_systematic_resample_or_none",
     "sharded_batched_particle_filter", "make_resample_step",
 ]

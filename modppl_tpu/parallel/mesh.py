@@ -1,9 +1,9 @@
 """Device-mesh helpers.
 
-TPU-native communication backend (SURVEY.md §2b item 4): the reference has
-zero cross-process code; here scale-out is ``jax.sharding.Mesh`` +
-``pjit``/``shard_map`` with XLA collectives over ICI/DCN — no custom
-transport. Determinism comes from fixed reduction orders (all-gather +
+Communication backend (SURVEY.md §2b item 4): the reference has zero
+cross-process code; here scale-out is ``jax.sharding.Mesh`` +
+``pjit``/``shard_map`` with XLA collectives (NCCL over NVLink between the
+cards of a host) — no custom transport. Determinism comes from fixed reduction orders (all-gather +
 ordered local reduction) and counter-based PRNG keys.
 
 Mesh convention for this framework (a PPL, not an NN trainer):
@@ -24,10 +24,12 @@ def initialize_runtime(coordinator_address=None, num_processes=None,
                        process_id=None, **kwargs):
     """Bring up the multi-host JAX distributed runtime (idempotent).
 
-    Thin wrapper over ``jax.distributed.initialize`` — on TPU pods the
-    arguments are auto-detected from the environment, so call with no
-    arguments in each host process before building a global mesh. Safe to
-    call when already initialized or in single-process runs (no-op).
+    Thin wrapper over ``jax.distributed.initialize``: pass the
+    coordinator address (``host:port``), the process count and this
+    process's id in each host process before building a global mesh
+    (where a cluster manager exports them, JAX can also detect them).
+    Safe to call when already initialized or in single-process runs
+    (no-op).
     """
     try:
         jax.distributed.initialize(

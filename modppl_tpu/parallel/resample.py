@@ -1,20 +1,22 @@
 """Vectorized resampling kernels.
 
-TPU-native replacement for the reference's scalar multinomial resampling loop
+Replacement for the reference's scalar multinomial resampling loop
 (modppl/src/inference/particle_filter.rs:37-41 driving the inverse-CDF scan
 at categorical.rs:24-31): ancestor indices are computed with one
-cumulative-sum + one scatter + one cumulative-sum — all O(N) single-pass VPU
+cumulative-sum + one scatter + one cumulative-sum — all O(N) data-parallel
 ops — and the "clone the selected traces" loop (particle_filter.rs:109-114)
 becomes a single index-gather over the batched trace pytree's leaves.
 
-Why not searchsorted: binary search over N particles costs log2(N) dependent
-random-access gather passes (~20 for 10^6 particles) — measured 13x slower
-than the scatter+cumsum form on a v5e chip. For the *uniform grid* of
-systematic positions the inverse map is closed-form:
+Why not searchsorted: binary search over N particles costs log2(N)
+dependent random-access gather passes (~20 for 10^6 particles). For the
+*uniform grid* of systematic positions the inverse map is closed-form:
 
     S_j   = ceil(N * cdf_j - u)        # first grid position index > cdf_j
     z[s]  = #{j : S_j == s}            # one scatter-add
     a[i]  = #{j : S_j <= i} = cumsum(z)[i]   # = parent of grid position i
+
+The scatter-add is integer arithmetic, so its result does not depend on
+the order in which a parallel backend applies the adds.
 
 Systematic resampling (stratified, single-uniform) is the default for the
 compiled tier: lower variance than multinomial and — because it consumes a
@@ -37,9 +39,8 @@ def _grid_parents(cdf, u, num):
     s = jnp.ceil(cdf * num - u).astype(jnp.int32)
     s = jnp.clip(s, 0, num)
     # monotonicity repair: XLA's parallel-prefix f32 cumsum can locally
-    # invert cdf, and the Pallas formulations of the same grid inverse
-    # (ops/resample_pallas.py, ops/fused_resample_pallas.py) require sorted
-    # S; the integer cummax is exact and keeps all three bit-identical.
+    # invert cdf; sorted S keeps the ancestors sorted (the sharded tier's
+    # halo exchange relies on that), and the integer cummax is exact.
     s = jax.lax.cummax(s)
     z = jnp.zeros(num + 1, jnp.int32).at[s].add(1)
     parents = jnp.cumsum(z[:num])
@@ -51,19 +52,9 @@ def systematic_parents(key, log_normalized_weights, num=None):
 
     positions_i = (u + i)/num against the weight CDF; deterministic given
     (key, weights) and invariant to particle-axis sharding layout.
-
-    On TPU with num % 1024 == 0 the rank computation runs in a Pallas kernel
-    (ops/resample_pallas.py) — bit-identical to the XLA scatter formulation
-    and ~6x faster (the scatter serializes on the TPU scalar core).
     """
-    import os
-
     n_in = log_normalized_weights.shape[0]
     n = num if num is not None else n_in
-    if (jax.default_backend() == "tpu" and n % 1024 == 0
-            and not os.environ.get("MODPPL_DISABLE_PALLAS_RESAMPLE")):
-        from modppl_tpu.ops.resample_pallas import systematic_parents_pallas
-        return systematic_parents_pallas(key, log_normalized_weights, num=n)
     u = jax.random.uniform(key, (), log_normalized_weights.dtype)
     return _grid_parents(_normalized_cdf(log_normalized_weights), u, n)
 
@@ -165,87 +156,3 @@ def gather_particles(tree, parents):
     Replaces the O(N*T) per-particle trace clone at particle_filter.rs:109-114.
     """
     return jax.tree_util.tree_map(lambda x: jnp.take(x, parents, axis=0), tree)
-
-
-def fused_systematic_resample_or_none(key, log_normalized_weights, tree):
-    """Systematic resampling with the fused Pallas ancestor+gather kernel.
-
-    Returns ``(new_tree, parents)`` when the TPU fused kernel applies
-    (float32 leaves, small total state width, N % 256 == 0), else ``None``
-    and the caller falls back to ``systematic_parents`` + ``gather_particles``.
-    The decision is made at trace time (structure is static); results are
-    bit-identical to the fallback (same integer ancestor logic, exact
-    one-hot state copies).
-    """
-    from modppl_tpu.ops.fused_resample_pallas import systematic_resample_fused
-
-    # escape hatch for Mosaic/toolchain regressions (via _fusable): the
-    # plain XLA path is bit-identical, just slower
-    n = log_normalized_weights.shape[0]
-    fus = _fusable(n, tree)
-    if fus is None:
-        return None
-    leaves, treedef, widths = fus
-
-    rows = [leaf.reshape(n, -1).T for leaf in leaves]   # (k_i, N) each
-    state_t = jnp.concatenate(rows, axis=0) if len(rows) > 1 else rows[0]
-    new_t, parents = systematic_resample_fused(
-        key, log_normalized_weights, state_t)
-    out_leaves, off = [], 0
-    for leaf, k in zip(leaves, widths):
-        out_leaves.append(new_t[off: off + k].T.reshape(leaf.shape))
-        off += k
-    return jax.tree_util.tree_unflatten(treedef, out_leaves), parents
-
-
-def np_prod(shape):
-    out = 1
-    for s in shape:
-        out *= int(s)
-    return out
-
-
-def _fusable(n, tree):
-    """Trace-time eligibility of the fused kernel for this state pytree;
-    returns (leaves, treedef, widths) or None."""
-    import os
-
-    from modppl_tpu.ops.fused_resample_pallas import MAX_STATE_DIM
-
-    if os.environ.get("MODPPL_DISABLE_FUSED_RESAMPLE"):
-        return None
-    if jax.default_backend() != "tpu":
-        return None
-    if n % 256 != 0:
-        return None
-    leaves, treedef = jax.tree_util.tree_flatten(tree)
-    widths = []
-    for leaf in leaves:
-        if leaf.dtype != jnp.float32 or leaf.ndim < 1 or leaf.shape[0] != n:
-            return None
-        widths.append(int(np_prod(leaf.shape[1:])))
-    if sum(widths) > MAX_STATE_DIM:
-        return None
-    return leaves, treedef, widths
-
-
-def fused_gather_from_s_or_none(s, tree):
-    """Fused ancestor+gather from a precomputed sorted slot-position vector
-    S (see ops/fused_resample_pallas.resample_fused_from_s), or ``None``
-    when the kernel does not apply. Used by the sharded batched tier, which
-    computes S with its layout-invariant CDF."""
-    from modppl_tpu.ops.fused_resample_pallas import resample_fused_from_s
-
-    n = s.shape[0]
-    fus = _fusable(n, tree)
-    if fus is None:
-        return None
-    leaves, treedef, widths = fus
-    rows = [leaf.reshape(n, -1).T for leaf in leaves]
-    state_t = jnp.concatenate(rows, axis=0) if len(rows) > 1 else rows[0]
-    new_t, parents = resample_fused_from_s(s, state_t)
-    out_leaves, off = [], 0
-    for leaf, k in zip(leaves, widths):
-        out_leaves.append(new_t[off: off + k].T.reshape(leaf.shape))
-        off += k
-    return jax.tree_util.tree_unflatten(treedef, out_leaves), parents

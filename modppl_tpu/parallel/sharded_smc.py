@@ -22,7 +22,7 @@ resampling exchanges only what moves:
 - **Ancestors**: the sorted slot-position vector S is ``all_gather``ed —
   O(N) *int32*, never the state — and parents come from the exact integer
   scatter+cumsum inverse (bit-identical to parallel/resample.py on the
-  same S; at dp=1 on TPU the fused Pallas kernel emits them for free).
+  same S).
 - **State exchange** moves only boundary segments: systematic ancestors are
   sorted, so shard k's parents form a contiguous source range around its own
   block. The fast path ``ppermute``s an H-row halo from each neighbour
@@ -81,9 +81,8 @@ def _det_sum(x_local, axis_name, num_total):
     Blocked: per-block totals come from the Hillis-Steele scan's last
     column (the same fixed add structure as the CDF), then the ≤ N/block
     totals are all_gathered in shard order and reduced by the explicit
-    adjacent-pairing tree. Bitwise layout-invariant, and ~12x faster at
-    N = 2^20 than a full-length element tree (_tree_sum's strided slices
-    cost 17 ms on a v5e; the blocked form ~1.4 ms)."""
+    adjacent-pairing tree. Bitwise layout-invariant, and far fewer strided
+    slices than a full-length element tree (_tree_sum) at N = 2^20."""
     from modppl_tpu.inference.adaptation import _tree_sum
 
     block = _cdf_block(num_total)
@@ -109,43 +108,22 @@ def _det_grid_positions(key, lw_local, axis_name, num_particles):
     semantics) for the sharded layout: S_j = cummax(ceil(N * cdf_j - u)),
     computed with the layout-invariant CDF. Integer cummax crosses shards by
     exact running maxima. Returns (s_local, log_total, ess)."""
-    import os
-
     n = num_particles
     n_local = lw_local.shape[0]
     block = _cdf_block(n)
     m = jnp.max(lw_local)
     if axis_name is not None:
         m = jax.lax.pmax(m, axis_name)
-    nb = n_local // block if block else 0
-    use_kernel = (jax.default_backend() == "tpu" and block == 1024
-                  and n_local % block == 0
-                  # the kernels tile nb blocks in groups of min(256, nb)
-                  # rows; non-dividing nb (e.g. N = 300*1024) must take the
-                  # XLA path or the kernel asserts at trace time (ADVICE r4)
-                  and (nb <= 256 or nb % 256 == 0)
-                  and not os.environ.get("MODPPL_DISABLE_PALLAS_GRID"))
-    if use_kernel:
-        # one-pass Pallas kernels: blocks stay in VMEM across all scan
-        # levels (ops/grid_positions_pallas.py) — same fixed per-block add
-        # structure as the XLA fallback below, used for BOTH layouts on
-        # TPU, so dp=1 vs dp=8 stay bitwise-equal
-        from modppl_tpu.ops.grid_positions_pallas import stats_cumsum
-
-        cum, totals, sq_totals = stats_cumsum(
-            lw_local.reshape(-1, block), m)
-    else:
-        e = jnp.exp(lw_local - m)
-        # ONE blocked scan pass for both Σe (CDF + normalizer) and Σe²
-        # (ESS): the e and e² rows are stacked so the Hillis-Steele
-        # shifts touch the data once. ESS = (Σe)²/Σe² (scale-invariant).
-        stacked = jnp.stack([e.reshape(-1, block),
-                             (e * e).reshape(-1, block)])
-        stacked = jax.lax.optimization_barrier(stacked)
-        c2 = _doubling_cumsum(stacked)
-        cum = c2[0]
-        totals = c2[0, :, -1]
-        sq_totals = c2[1, :, -1]
+    e = jnp.exp(lw_local - m)
+    # ONE blocked scan pass for both Σe (CDF + normalizer) and Σe² (ESS):
+    # the e and e² rows are stacked so the Hillis-Steele shifts touch the
+    # data once. ESS = (Σe)²/Σe² (scale-invariant).
+    stacked = jnp.stack([e.reshape(-1, block), (e * e).reshape(-1, block)])
+    stacked = jax.lax.optimization_barrier(stacked)
+    c2 = _doubling_cumsum(stacked)
+    cum = c2[0]
+    totals = c2[0, :, -1]
+    sq_totals = c2[1, :, -1]
     if axis_name is not None:
         totals = jax.lax.all_gather(totals, axis_name, tiled=True)
         sq_totals = jax.lax.all_gather(sq_totals, axis_name, tiled=True)
@@ -164,22 +142,9 @@ def _det_grid_positions(key, lw_local, axis_name, num_particles):
     log_total = m + jnp.log(total)
     ess = (total * total) / _tree_sum(sq_totals)
     u = jax.random.uniform(key, (), lw_local.dtype)
-    if use_kernel:
-        from modppl_tpu.ops.grid_positions_pallas import positions_cummax
-
-        s_rows, mx = positions_cummax(cum, my_offs, total, u, n)
-        # cross-block repair: running maxima of block maxes (tiny), then
-        # one elementwise max — same exact integers as a global cummax
-        prev_blk = jax.lax.associative_scan(jnp.maximum, mx)
-        prev_blk = jnp.concatenate(
-            [jnp.full((1,), jnp.iinfo(jnp.int32).min, jnp.int32),
-             prev_blk[:-1]])
-        s = jnp.maximum(s_rows, prev_blk[:, None]).reshape(n_local)
-    else:
-        cdf = (cum + my_offs[:, None]).reshape(n_local)
-        s = jnp.clip(jnp.ceil((cdf / total) * n - u), 0, n).astype(
-            jnp.int32)
-        s = jax.lax.cummax(s)  # local repair (exact integer max)
+    cdf = (cum + my_offs[:, None]).reshape(n_local)
+    s = jnp.clip(jnp.ceil((cdf / total) * n - u), 0, n).astype(jnp.int32)
+    s = jax.lax.cummax(s)  # local repair (exact integer max)
     if axis_name is not None:
         last = s[-1]
         lasts = jax.lax.all_gather(last, axis_name, tiled=False)
@@ -242,9 +207,8 @@ def _parents_from_s(s, num_particles):
     """Ancestors from the sorted slot-position vector S by the exact
     integer scatter+cumsum inverse (parallel/resample._grid_parents
     semantics): parents[i] = #{j : S_j <= i}. All-integer, so the result is
-    identical under any summation order / layout — and ~25x faster on TPU
-    than the searchsorted form (binary search over N=2^20 runs 20 dependent
-    gather passes on the scalar core: measured 163 ms vs ~7 ms at 2^20)."""
+    identical under any summation order / layout — and one pass where the
+    searchsorted form needs log2(N) dependent gather passes."""
     n = num_particles
     z = jnp.zeros(n + 1, jnp.int32).at[s].add(1)
     return jnp.clip(jnp.cumsum(z[:n]), 0, n - 1)
@@ -280,15 +244,6 @@ def make_resample_step(mesh, num_particles, ess_threshold, axis="dp",
         def resample_branch(args):
             s, state_local = args
             if axis_name is None:
-                from modppl_tpu.parallel.resample import (
-                    fused_gather_from_s_or_none,
-                )
-
-                fused = fused_gather_from_s_or_none(s, state_local)
-                if fused is not None:
-                    # the kernel emits the ancestor ids as a by-product —
-                    # bit-identical to _parents_from_s on the same S
-                    return fused
                 parents = _parents_from_s(s, num_particles)
                 new_state = jax.tree_util.tree_map(
                     lambda x: jnp.take(x, parents, axis=0), state_local)
@@ -319,9 +274,8 @@ def make_resample_step(mesh, num_particles, ess_threshold, axis="dp",
         if ess_threshold >= 1.0:
             # threshold 1.0 = resample every step (vsmc.py convention; the
             # sole skip case, bitwise-uniform weights, makes the resample
-            # an exact identity) — specialize away the lax.cond: a cond
-            # around the Pallas gather costs ~3 ms/step inside the scan
-            # (measured v5e, N=2^20) vs ~0.4 ms unconditioned
+            # an exact identity) — specialize away the lax.cond, which
+            # would otherwise wrap the whole gather inside the scan
             new_state, parents = resample_branch((s, state_local))
             do = jnp.asarray(True)
             lw_out = jnp.zeros_like(lw_local)

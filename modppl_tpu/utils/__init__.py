@@ -1,6 +1,6 @@
 """Numeric and pytree utilities.
 
-TPU-native counterpart of the reference's free functions
+JAX counterpart of the reference's free functions
 (``logsumexp`` at modppl/src/lib.rs:34-45).
 """
 

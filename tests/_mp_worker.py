@@ -4,8 +4,8 @@ Launched by tests/test_multiprocess.py as
 ``python tests/_mp_worker.py <coord_port> <process_id> <num_processes>
 <outfile>``. Each process owns 4 virtual CPU devices; together they form
 the same 8-device global mesh the single-process suite uses — the CPU
-simulation of a 2-host TPU slice (SURVEY.md:274-276), exercising
-jax.distributed.initialize + the DCN/coordinator path of
+simulation of a 2-host deployment (SURVEY.md:274-276), exercising
+jax.distributed.initialize + the cross-process coordinator path of
 parallel/mesh.initialize_runtime for real.
 """
 
@@ -22,7 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def _hmc_case(mesh):
     """Pooled-adaptation HMC across the mesh: the shardmap_hmc pipeline
     with the global u0s built identically on every process (VERDICT r3 #6
-    — the bitwise claim of adaptation.py exercised over the DCN path)."""
+    — the bitwise claim of adaptation.py exercised across processes)."""
     import jax
     import jax.numpy as jnp
     import numpy as np

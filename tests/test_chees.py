@@ -1,4 +1,4 @@
-"""ChEES-HMC (inference/chees.py): the TPU-native fixed-length alternative
+"""ChEES-HMC (inference/chees.py): the fixed-length alternative
 to NUTS (VERDICT r4 #2). Correctness gates: conjugate posterior moments,
 trajectory-length adaptation on a correlated target, halton determinism,
 and the num_chains guard."""

@@ -3,7 +3,7 @@
 Port of modppl/tests/dyngenfn.rs — the exact update/regenerate weight values
 in each (prev?, constrained?) case, discard/visitor-GC semantics on branch
 switches, and residual-constraint errors. These constants are the contract
-the TPU build must reproduce bit-for-bit (SURVEY.md §4).
+this build must reproduce bit-for-bit (SURVEY.md §4).
 """
 
 import math

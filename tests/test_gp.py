@@ -94,10 +94,7 @@ def test_gp_hyperparameter_map_recovers_scales():
 
 def test_gp_hmc_posterior_on_hyperparameters():
     """Pooled-adaptation HMC over the 3 log hyperparameters mixes and
-    stays near the MAP (the posterior is unimodal here). The quadratic
-    probe is skipped explicitly: its eager evaluation of the unrolled
-    12x12 Cholesky costs minutes on CPU, and non-quadratic routing is
-    already pinned by the detection tests in test_leapfrog_pallas."""
+    stays near the MAP (the posterior is unimodal here)."""
     from modppl_tpu.inference.hmc import hmc
 
     model = make_gp_model(XS)
@@ -106,9 +103,7 @@ def test_gp_hmc_posterior_on_hyperparameters():
     tr, _ = model.generate(jax.random.PRNGKey(3), (), sim)
     obs = Trie.from_dict({"y": tr.data.read("y")})
     out = hmc(jax.random.PRNGKey(0), model, (), obs, num_samples=150,
-              num_warmup=75, num_chains=8, num_leapfrog=8,
-              use_fused_quadratic=False)
-    assert not bool(out["fused_quadratic"])
+              num_warmup=75, num_chains=8, num_leapfrog=8)
     acc = float(np.mean(np.asarray(out["accept_prob"])))
     assert acc > 0.5
     ls_draws = np.asarray(out["samples"]["log_ls"])[:, 75:]

@@ -107,7 +107,7 @@ def test_smc_log_ml_matches_kalman(lgssm_data):
 
 
 def test_kalman_hlo_no_custom_calls(lgssm_data):
-    """Hot-path rule (docs/performance.md #1): at small static D the whole
+    """Hot-path rule (ops/smalllinalg.py): at small static D the whole
     filter — sequential and time-parallel — must lower without any XLA
     custom call (cholesky/triangular-solve/LU all route through
     ops/smalllinalg.py unrolled forms)."""

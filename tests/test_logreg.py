@@ -1,33 +1,14 @@
 """Logistic-regression model (models/logreg.py): the non-quadratic HMC
-bench target. Checks (1) detection correctly refuses the target, (2) the
-generic fast pooled path recovers the posterior mode region, (3) MAP
-oracle self-consistency."""
+bench target. Checks (1) the generic pooled path recovers the posterior
+mode region, (2) MAP oracle self-consistency."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from modppl_tpu import Trie
-from modppl_tpu.inference.hmc import (
-    detect_quadratic_target,
-    hmc,
-    make_unconstrained_logprob,
-)
+from modppl_tpu.inference.hmc import hmc
 from modppl_tpu.models.logreg import make_logreg, map_newton, simulate_logreg
-
-
-def test_logreg_is_not_quadratic():
-    from jax.flatten_util import ravel_pytree
-
-    d = 3
-    X, ys, _ = simulate_logreg(jax.random.PRNGKey(0), 64, d)
-    model = make_logreg(d)
-    tr, _ = model.generate(jax.random.PRNGKey(1), (X, ys), Trie())
-    logprob, u0, _, _ = make_unconstrained_logprob(
-        model, (X, ys), tr, Trie())
-    u0f, unravel = ravel_pytree(u0)
-    assert detect_quadratic_target(
-        lambda u: logprob(unravel(u)), u0f.shape[0], u0f.dtype) is None
 
 
 def test_logreg_hmc_posterior_near_map():
@@ -38,7 +19,6 @@ def test_logreg_hmc_posterior_near_map():
     out = hmc(jax.random.PRNGKey(3), model, (X, ys), Trie(),
               num_samples=300, num_warmup=200, num_chains=16,
               num_leapfrog=8)
-    assert not bool(out["fused_quadratic"])
     w_map = map_newton(X, ys)
     ws = np.asarray(out["samples"]["w"])[:, 100:].reshape(-1, d)
     # posterior mean within a posterior-sd-scale ball of the MAP

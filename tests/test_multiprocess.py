@@ -2,7 +2,7 @@
 
 Spawns 2 OS processes that each own 4 virtual CPU devices, bring up the
 jax.distributed coordinator (parallel/mesh.initialize_runtime — the
-DCN/communicator path that single-process suites never execute), build the
+cross-process path that single-process suites never execute), build the
 8-device global mesh, and run the deterministic cross-shard systematic
 resampler. The 2-process result must be BITWISE-identical to the
 single-process 8-device run of the same resampler — the BASELINE.json
@@ -107,8 +107,8 @@ def test_two_process_resample_matches_single_process(tmp_path):
 
 def test_two_process_pooled_hmc_matches_single_process(tmp_path):
     """VERDICT r3 #6: the pooled-adaptation bitwise-equality claim
-    (adaptation.py:28-31) asserted ACROSS PROCESSES — the layout where DCN
-    collectives could silently diverge — not just across device counts."""
+    (adaptation.py:28-31) asserted ACROSS PROCESSES — the layout where
+    cross-host collectives could silently diverge — not just across device counts."""
     port = _free_port()
     out = tmp_path / "mp_hmc.npz"
     worker = os.path.join(os.path.dirname(__file__), "_mp_worker.py")

@@ -110,7 +110,7 @@ def test_nuts_matches_hmc_on_correlated_target():
     out_n = nuts(jax.random.PRNGKey(4), linreg, (xs,), obs, max_depth=8,
                  **kwargs)
     out_h = hmc(jax.random.PRNGKey(5), linreg, (xs,), obs, num_leapfrog=16,
-                use_fused_quadratic=False, **kwargs)
+                **kwargs)
 
     X = np.stack([np.asarray(xs), np.ones(11)], 1)
     post_cov = np.linalg.inv(np.diag([1.0, 0.25]) + 100.0 * X.T @ X)

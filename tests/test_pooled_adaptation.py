@@ -172,8 +172,7 @@ def test_adapted_metric_reaches_da_equilibrium_on_stiff_target():
         h.sample(xs4, (0.0, sds), "x")
 
     out = hmc(jax.random.PRNGKey(5), aniso, (), Trie(), num_samples=100,
-              num_warmup=300, num_chains=32, num_leapfrog=8,
-              use_fused_quadratic=False)
+              num_warmup=300, num_chains=32, num_leapfrog=8)
     acc = float(jnp.mean(out["accept_prob"]))
     eps = float(out["step_size"])
     # with a correct variance metric the problem is unit-scale: eps is

@@ -165,44 +165,6 @@ def test_sharded_kalman_log_ml_oracle():
         float(out["log_ml"]), exact)
 
 
-def test_grid_positions_kernels_match_xla_path():
-    """ops/grid_positions_pallas.py (interpret mode) vs the XLA blocked
-    formulation: same per-block add structure => identical S, totals."""
-    from modppl_tpu.ops.grid_positions_pallas import (
-        positions_cummax,
-        stats_cumsum,
-    )
-    from modppl_tpu.parallel.sharded_smc import _doubling_cumsum
-
-    n = 64 * 1024
-    block = 1024
-    lw = (jax.random.normal(jax.random.PRNGKey(0), (n,), jnp.float32)
-          * 0.7)
-    m = jnp.max(lw)
-    cum_k, tot_k, _sq_k = stats_cumsum(lw.reshape(-1, block), m,
-                                       interpret=True)
-    e = jnp.exp(lw - m)
-    cum_x = _doubling_cumsum(e.reshape(-1, block))
-    np.testing.assert_array_equal(np.asarray(cum_k), np.asarray(cum_x))
-    np.testing.assert_array_equal(np.asarray(tot_k),
-                                  np.asarray(cum_x[:, -1]))
-
-    offs_incl = _doubling_cumsum(tot_k[None, :])[0]
-    offs = jnp.concatenate([jnp.zeros((1,), jnp.float32), offs_incl[:-1]])
-    total = offs_incl[-1]
-    u = jnp.float32(0.37)
-    s_rows, mx = positions_cummax(cum_k, offs, total, u, n, interpret=True)
-    prev = jax.lax.associative_scan(jnp.maximum, mx)
-    prev = jnp.concatenate(
-        [jnp.full((1,), jnp.iinfo(jnp.int32).min, jnp.int32), prev[:-1]])
-    s_k = jnp.maximum(s_rows, prev[:, None]).reshape(n)
-
-    cdf = (cum_x + offs[:, None]).reshape(n)
-    s_x = jax.lax.cummax(
-        jnp.clip(jnp.ceil((cdf / total) * n - u), 0, n).astype(jnp.int32))
-    np.testing.assert_array_equal(np.asarray(s_k), np.asarray(s_x))
-
-
 def test_sharded_guided_rejuvenated_layout_invariance():
     """Guided + resample-move on the SHARDED filter: bitwise-identical
     dp=1 vs dp=8, and the Kalman log-ML gate still holds (the full
